@@ -15,19 +15,19 @@ import sys
 def decode_outcome(kind, data):
     try:
         if kind == "jpegls":
-            from go_dicom_codec_tpu.codecs import jpegls
+            from go_dicom_codec_jax.codecs import jpegls
             payload = jpegls.decode(data)[0]
         elif kind == "baseline":
-            from go_dicom_codec_tpu.codecs import jpeg_baseline
+            from go_dicom_codec_jax.codecs import jpeg_baseline
             payload = jpeg_baseline.decode(data)[0]
         elif kind == "extended":
-            from go_dicom_codec_tpu.codecs import jpeg_extended
+            from go_dicom_codec_jax.codecs import jpeg_extended
             payload = jpeg_extended.decode(data)[0]
         elif kind == "p14":
-            from go_dicom_codec_tpu.codecs import jpeg_lossless
+            from go_dicom_codec_jax.codecs import jpeg_lossless
             payload = jpeg_lossless.decode(data)[0]
         elif kind == "htj2k":
-            from go_dicom_codec_tpu.codecs.jpeg2000 import J2KDecoder
+            from go_dicom_codec_jax.codecs.jpeg2000 import J2KDecoder
             payload = J2KDecoder().decode(data)[0].tobytes()
         else:
             raise ValueError(kind)

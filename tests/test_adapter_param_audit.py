@@ -8,9 +8,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.j2k_adapters import _params_from
-from go_dicom_codec_tpu.codecs.jpeg2000 import J2KEncodeParams
-from go_dicom_codec_tpu.params import Parameters
+from go_dicom_codec_jax.codecs.j2k_adapters import _params_from
+from go_dicom_codec_jax.codecs.jpeg2000 import J2KEncodeParams
+from go_dicom_codec_jax.params import Parameters
 
 # fields that intentionally do NOT travel through the Parameters bag
 EXEMPT = {

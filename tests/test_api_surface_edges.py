@@ -9,14 +9,14 @@ import threading
 import numpy as np
 import pytest
 
-import go_dicom_codec_tpu as dc
-from go_dicom_codec_tpu.errors import UnsupportedFormatError
-from go_dicom_codec_tpu.frames import (FrameInfo, MemoryPixelData,
+import go_dicom_codec_jax as dc
+from go_dicom_codec_jax.errors import UnsupportedFormatError
+from go_dicom_codec_jax.frames import (FrameInfo, MemoryPixelData,
                                        array_to_frame, frame_to_array,
                                        frames_as_array, frames_from_array)
-from go_dicom_codec_tpu.params import (Parameters, optional_int,
+from go_dicom_codec_jax.params import (Parameters, optional_int,
                                        require_range)
-from go_dicom_codec_tpu.registry import CodecRegistry, get_global_registry
+from go_dicom_codec_jax.registry import CodecRegistry, get_global_registry
 
 
 # ---- registry ----------------------------------------------------------------
@@ -199,7 +199,7 @@ def test_codec_rejects_wrong_bit_depth():
 # ---- Golomb bit IO boundaries -----------------------------------------------
 
 def test_golomb_unary_roundtrip():
-    from go_dicom_codec_tpu.entropy.golomb import GolombReader, GolombWriter
+    from go_dicom_codec_jax.entropy.golomb import GolombReader, GolombWriter
     gw = GolombWriter()
     for n in (0, 1, 7, 31, 64):
         gw.write_unary(n)
@@ -215,7 +215,7 @@ def test_golomb_unary_roundtrip():
 def test_golomb_mapped_limit_escape():
     """Values beyond the unary limit take the escape (limit) path and
     still roundtrip through encode_mapped's bit layout."""
-    from go_dicom_codec_tpu.entropy.golomb import GolombReader, GolombWriter
+    from go_dicom_codec_jax.entropy.golomb import GolombReader, GolombWriter
     k, limit, qbpp = 0, 23, 8
     big = 200                          # forces the limit escape
     small = 3
@@ -237,7 +237,7 @@ def test_golomb_mapped_limit_escape():
 
 
 def test_golomb_writer_bit_packing_msb_first():
-    from go_dicom_codec_tpu.entropy.golomb import GolombWriter
+    from go_dicom_codec_jax.entropy.golomb import GolombWriter
     gw = GolombWriter()
     gw.write_unary(0)                  # '1'
     gw.write_unary(2)                  # '001'

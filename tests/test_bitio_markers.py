@@ -8,9 +8,9 @@ scan-end detection with RSTn, and JPEG-LS's different stuffing regime.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codestream import jpeg_markers as mk
-from go_dicom_codec_tpu.errors import CorruptStreamError
-from go_dicom_codec_tpu.utils.npbits import (BitReader, destuff_ff,
+from go_dicom_codec_jax.codestream import jpeg_markers as mk
+from go_dicom_codec_jax.errors import CorruptStreamError
+from go_dicom_codec_jax.utils.npbits import (BitReader, destuff_ff,
                                              pack_bits_msb, stuff_ff)
 
 

@@ -16,8 +16,8 @@ import os
 import numpy as np
 import pytest
 
-import go_dicom_codec_tpu as dc
-from go_dicom_codec_tpu.codecs import jpeg_lossless
+import go_dicom_codec_jax as dc
+from go_dicom_codec_jax.codecs import jpeg_lossless
 
 BASE = os.path.join(os.path.dirname(__file__), "..", "test-data")
 

@@ -9,7 +9,7 @@ tests): pin the boundary geometry as enumerated cases rather than fuzz.
 import numpy as np
 import pytest
 
-import go_dicom_codec_tpu as dc
+import go_dicom_codec_jax as dc
 
 SIZES = [(1, 1), (1, 7), (7, 1), (2, 2), (3, 5), (8, 8), (9, 17),
          (16, 16), (31, 33), (64, 63)]
@@ -99,7 +99,7 @@ def test_baseline_size_quality_sweep(size, quality, rng):
 
 def test_baseline_restart_interval_roundtrip(rng):
     """Restart markers byte-align and reset DC predictors."""
-    from go_dicom_codec_tpu.codecs import jpeg_baseline as jb
+    from go_dicom_codec_jax.codecs import jpeg_baseline as jb
 
     arr = (np.cumsum(rng.integers(-3, 4, (64, 64)), axis=1)
            % 200 + 20).astype(np.uint8)

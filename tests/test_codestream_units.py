@@ -10,14 +10,14 @@ import struct
 
 import pytest
 
-from go_dicom_codec_tpu.codestream.j2k import (CocInfo, CodInfo, Codestream,
+from go_dicom_codec_jax.codestream.j2k import (CocInfo, CodInfo, Codestream,
                                                PocEntry, QcdInfo, SizInfo,
                                                TileInfo, _overlay_coc,
                                                parse_codestream, write_cod,
                                                write_com, write_qcd,
                                                write_rgn, write_siz,
                                                write_tile_part)
-from go_dicom_codec_tpu.errors import CorruptStreamError
+from go_dicom_codec_jax.errors import CorruptStreamError
 
 SOC = b"\xff\x4f"
 EOC = b"\xff\xd9"
@@ -201,7 +201,7 @@ def test_missing_headers_rejected():
 
 
 def test_coc_before_siz_rejected():
-    from go_dicom_codec_tpu.codestream.j2k import write_coc
+    from go_dicom_codec_jax.codestream.j2k import write_coc
     stream = SOC + write_coc(CocInfo(comp=0), 1)
     with pytest.raises(CorruptStreamError):
         parse_codestream(stream)

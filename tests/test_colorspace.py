@@ -11,9 +11,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from go_dicom_codec_tpu.ops.dct8x8 import (rgb_to_ycbcr, rgb_to_ycbcr_np,
+from go_dicom_codec_jax.ops.dct8x8 import (rgb_to_ycbcr, rgb_to_ycbcr_np,
                                            ycbcr_to_rgb, ycbcr_to_rgb_np)
-from go_dicom_codec_tpu.ops.mct import (dc_level_shift, ict_forward,
+from go_dicom_codec_jax.ops.mct import (dc_level_shift, ict_forward,
                                         ict_inverse, inv_dc_level_shift,
                                         rct_forward, rct_inverse)
 

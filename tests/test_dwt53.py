@@ -13,7 +13,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from go_dicom_codec_tpu.ops.dwt53 import (
+from go_dicom_codec_jax.ops.dwt53 import (
     fwd53_1d, fwd53_2d, fwd53_multilevel, inv53_1d, inv53_2d,
     inv53_multilevel, ll_dimensions)
 

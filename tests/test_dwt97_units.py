@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.ops import dwt97 as d97
-from go_dicom_codec_tpu.ops.dwt53 import ll_dimensions
+from go_dicom_codec_jax.ops import dwt97 as d97
+from go_dicom_codec_jax.ops.dwt53 import ll_dimensions
 
 
 # ---- lifting constants (T.800 Table F.4) ------------------------------------

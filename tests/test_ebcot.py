@@ -7,10 +7,10 @@ Mirrors the reference's mqc state-machine checks and t1 geometry sweeps
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.entropy.ebcot import (
+from go_dicom_codec_jax.entropy.ebcot import (
     SC_LUT, SPB_LUT, STYLE_LAZY, STYLE_RESET, STYLE_SEGSYM, STYLE_TERMALL,
     STYLE_VSC, ZC_LUT, T1Decoder, T1Encoder, max_bitplanes)
-from go_dicom_codec_tpu.entropy.mq import MQDecoder, MQEncoder
+from go_dicom_codec_jax.entropy.mq import MQDecoder, MQEncoder
 
 
 def test_mq_roundtrip_random_bits(rng):

@@ -7,10 +7,10 @@ edges, and PackBits boundary behavior.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs import jpeg_common as jc
-from go_dicom_codec_tpu.codecs import jpeg_baseline as jb
-from go_dicom_codec_tpu.entropy import huffman as hf
-from go_dicom_codec_tpu.errors import CorruptStreamError
+from go_dicom_codec_jax.codecs import jpeg_common as jc
+from go_dicom_codec_jax.codecs import jpeg_baseline as jb
+from go_dicom_codec_jax.entropy import huffman as hf
+from go_dicom_codec_jax.errors import CorruptStreamError
 
 
 # ---- optimal Huffman properties (T.81 K.2) ----------------------------------
@@ -153,7 +153,7 @@ def test_jpeg_restart_interval_wraps_past_rst7(rng):
 
 def test_jpeg_16bit_dqt_for_12bit(rng):
     """12-bit extended uses 16-bit DQT entries when steps exceed 255."""
-    from go_dicom_codec_tpu.codecs import jpeg_extended as je
+    from go_dicom_codec_jax.codecs import jpeg_extended as je
     img = rng.integers(0, 4096, (48, 40)).astype("<u2")
     data = je.encode(img.tobytes(), 40, 48, 1, 12, 20)   # low quality
     pix, w, h, c, bd = je.decode(data)
@@ -163,7 +163,7 @@ def test_jpeg_16bit_dqt_for_12bit(rng):
 # ---- JPEG-LS parameter edges -------------------------------------------------
 
 def test_jls_custom_thresholds_roundtrip(rng):
-    from go_dicom_codec_tpu.codecs.jpegls import Traits
+    from go_dicom_codec_jax.codecs.jpegls import Traits
     t = Traits(maxval=255, near=0)
     # T.87 defaults for 8-bit
     assert (t.t1, t.t2, t.t3) == (3, 7, 21)
@@ -172,7 +172,7 @@ def test_jls_custom_thresholds_roundtrip(rng):
 
 
 def test_jls_small_maxval(rng):
-    from go_dicom_codec_tpu.codecs import jpegls
+    from go_dicom_codec_jax.codecs import jpegls
     img = rng.integers(0, 16, (24, 20)).astype(np.uint8)
     data = jpegls.encode(img.tobytes(), 20, 24, 1, 4, 0)
     out, w, h, c, bits, near = jpegls.decode(data)
@@ -181,7 +181,7 @@ def test_jls_small_maxval(rng):
 
 @pytest.mark.parametrize("near", [1, 2, 7])
 def test_jls_near_error_bound_exact(near, rng):
-    from go_dicom_codec_tpu.codecs import jpegls
+    from go_dicom_codec_jax.codecs import jpegls
     img = rng.integers(0, 256, (32, 32)).astype(np.uint8)
     data = jpegls.encode(img.tobytes(), 32, 32, 1, 8, near)
     out, *_ = jpegls.decode(data)
@@ -191,7 +191,7 @@ def test_jls_near_error_bound_exact(near, rng):
 
 
 def test_jls_truncated_header_raises(rng):
-    from go_dicom_codec_tpu.codecs import jpegls
+    from go_dicom_codec_jax.codecs import jpegls
     img = rng.integers(0, 256, (32, 32)).astype(np.uint8)
     data = jpegls.encode(img.tobytes(), 32, 32, 1, 8, 0)
     with pytest.raises(Exception):
@@ -201,7 +201,7 @@ def test_jls_truncated_header_raises(rng):
 # ---- PackBits boundaries -----------------------------------------------------
 
 def _pb_roundtrip(data: bytes) -> bytes:
-    from go_dicom_codec_tpu.entropy.rlepack import (packbits_decode,
+    from go_dicom_codec_jax.entropy.rlepack import (packbits_decode,
                                                     packbits_encode)
     enc = packbits_encode(np.frombuffer(data, dtype=np.uint8))
     return np.asarray(packbits_decode(enc, len(data))).tobytes()

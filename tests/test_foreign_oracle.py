@@ -18,7 +18,7 @@ import io
 import numpy as np
 import pytest
 
-import go_dicom_codec_tpu as dc
+import go_dicom_codec_jax as dc
 
 PIL_Image = pytest.importorskip("PIL.Image")
 
@@ -138,7 +138,7 @@ def test_j2k_progressions_foreign(rng, order):
 
 
 def test_j2k_roi_foreign(rng):
-    from go_dicom_codec_tpu.codecs.j2k_roi import ROIRegion
+    from go_dicom_codec_jax.codecs.j2k_roi import ROIRegion
 
     img = _smooth(rng, 64, 64, 1, 12)
     stream, _ = _encode(
@@ -183,7 +183,7 @@ def test_htj2k_lossy_foreign(rng):
 def test_pil_encoded_jpeg_decodes_here(rng):
     """libjpeg-encoded baseline scan → our decoder, checked against
     PIL's own decode (decoder-vs-decoder, quant loss cancelled)."""
-    from go_dicom_codec_tpu.codecs import jpeg_baseline as jb
+    from go_dicom_codec_jax.codecs import jpeg_baseline as jb
 
     img = _smooth(rng, 64, 96, 1, 8)
     buf = io.BytesIO()
@@ -200,7 +200,7 @@ def test_pil_encoded_jpeg_decodes_here(rng):
 ])
 def test_pil_encoded_j2k_lossless_decodes_here(rng, mode, arr_fn):
     """OpenJPEG-encoded reversible raw codestreams decode bit-exact."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import decode_to_pixels
+    from go_dicom_codec_jax.codecs.jpeg2000 import decode_to_pixels
 
     img = arr_fn(rng)
     buf = io.BytesIO()
@@ -212,7 +212,7 @@ def test_pil_encoded_j2k_lossless_decodes_here(rng, mode, arr_fn):
 
 
 def test_pil_encoded_j2k_16bit_decodes_here(rng, tmp_path):
-    from go_dicom_codec_tpu.codecs.jpeg2000 import decode_to_pixels
+    from go_dicom_codec_jax.codecs.jpeg2000 import decode_to_pixels
 
     img = _smooth(rng, 64, 64, 1, 16).astype("<u2")
     fn = tmp_path / "x.j2k"  # some PIL encode paths need a real file
@@ -226,7 +226,7 @@ def test_pil_encoded_j2k_16bit_decodes_here(rng, tmp_path):
 
 
 def test_pil_encoded_j2k_lossy_decodes_here(rng, tmp_path):
-    from go_dicom_codec_tpu.codecs.jpeg2000 import decode_to_pixels
+    from go_dicom_codec_jax.codecs.jpeg2000 import decode_to_pixels
 
     img = _smooth(rng, 64, 96, 1, 8)
     fn = tmp_path / "x.j2k"
@@ -254,7 +254,7 @@ def test_pil_progressive_jpeg_decodes_here(rng, mode, shape, kw):
     """libjpeg progressive (SOF2) streams decode here (reference parity:
     its Extended path rides Go stdlib image/jpeg, which accepts SOF2 —
     /root/reference/jpeg/extended/encoder_simple.go:35-46)."""
-    from go_dicom_codec_tpu.codecs import jpeg_extended as je
+    from go_dicom_codec_jax.codecs import jpeg_extended as je
 
     n = 1 if mode == "L" else 3
     img = _smooth(rng, shape[0], shape[1], n, 8)

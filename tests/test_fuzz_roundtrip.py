@@ -9,9 +9,9 @@ failures reproduce.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
                                                 J2KEncoder)
-from go_dicom_codec_tpu.codestream import j2k
+from go_dicom_codec_jax.codestream import j2k
 
 
 @pytest.mark.parametrize("seed", range(12))
@@ -80,7 +80,7 @@ def test_odd_image_origin_decode():
     w, h = 63, 65
     img = rng.integers(0, 4096, (h, w)).astype(np.int64)
 
-    from go_dicom_codec_tpu.codecs.jpeg2000 import band_mb
+    from go_dicom_codec_jax.codecs.jpeg2000 import band_mb
     enc = J2KEncoder(J2KEncodeParams(num_levels=2))
     siz = j2k.SizInfo(xsiz=64, ysiz=66, xosiz=1, yosiz=1,
                       xtsiz=64, ytsiz=66,
@@ -88,7 +88,7 @@ def test_odd_image_origin_decode():
     cod = j2k.CodInfo(progression=0, num_layers=1, mct=0, num_levels=2,
                       cb_width=64, cb_height=64, transform=1)
     qcd = j2k.QcdInfo(style=0, guard_bits=2)
-    from go_dicom_codec_tpu.codecs.j2k_quant import band_gain
+    from go_dicom_codec_jax.codecs.j2k_quant import band_gain
     for r in range(3):
         for band in ([0] if r == 0 else [1, 2, 3]):
             qcd.exponents.append(16 + band_gain(band))
@@ -159,7 +159,7 @@ def test_ragged_odd_origin_tile_deep_levels():
     the ×2 rule), so the DWT cascade and the band rectangles agree."""
     rng = np.random.default_rng(1)
     img = rng.integers(-(1 << 9), 1 << 9, (61, 63, 3)).astype(np.int64)
-    from go_dicom_codec_tpu.codecs.j2k_roi import ROIRegion
+    from go_dicom_codec_jax.codecs.j2k_roi import ROIRegion
     roi = [ROIRegion(shape="rect", rect=(1, 1, 31, 30), style="maxshift")]
     cfg = dict(num_levels=5, cb_width=64, cb_height=16, progression=2,
                cb_style=1, tile_width=48, tile_height=48, roi_regions=roi)

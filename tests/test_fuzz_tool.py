@@ -6,7 +6,7 @@ over every family exits 0, a single-trial --only replay exits 0, and a
 bad family selection exits 2.
 """
 
-from go_dicom_codec_tpu.tools import fuzz
+from go_dicom_codec_jax.tools import fuzz
 
 
 def test_short_campaign_all_families(capsys):

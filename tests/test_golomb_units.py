@@ -8,7 +8,7 @@ limit escape, and k-parameter sweeps.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.entropy.golomb import GolombReader, GolombWriter
+from go_dicom_codec_jax.entropy.golomb import GolombReader, GolombWriter
 
 
 def test_bit_writer_reader_roundtrip(rng):

@@ -12,16 +12,16 @@ import io
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                 J2KEncodeParams,
                                                 J2KEncoder)
-from go_dicom_codec_tpu.entropy.htrefine import (MagRefPacker,
+from go_dicom_codec_jax.entropy.htrefine import (MagRefPacker,
                                                  MagRefReader,
                                                  SigPropPacker,
                                                  SigPropReader,
                                                  apply_refinement,
                                                  encode_refinement)
-from go_dicom_codec_tpu.t2.packets import _segments, _terminates_at
+from go_dicom_codec_jax.t2.packets import _segments, _terminates_at
 
 
 # ---- bit packers / readers (§7.1.5-7.1.6, F.5) -------------------------
@@ -181,7 +181,7 @@ def test_batched_refined_decode_matches_scalar(rng, monkeypatch):
     batched = np.squeeze(J2KDecoder().decode(s)[0])
     # the decoder imports the batched entry at call time, so patching
     # the native module forces every block down the scalar path
-    from go_dicom_codec_tpu import native as nat
+    from go_dicom_codec_jax import native as nat
     monkeypatch.setattr(nat, "ht_decode_blocks_refined_native",
                         lambda items: None)
     scalar = np.squeeze(J2KDecoder().decode(s)[0])
@@ -197,7 +197,7 @@ def test_batched_refined_encode_matches_scalar(rng, monkeypatch):
     p = J2KEncodeParams(htj2k=True, ht_refinement=True, num_levels=2,
                         cb_width=32, cb_height=32, num_layers=2)
     batched = J2KEncoder(p).encode(img, 96, 96, 1, 12)
-    from go_dicom_codec_tpu import native as nat
+    from go_dicom_codec_jax import native as nat
     monkeypatch.setattr(nat, "ht_refine_encode_blocks_native",
                         lambda blks, causal: None)
     scalar = J2KEncoder(p).encode(img, 96, 96, 1, 12)
@@ -259,7 +259,7 @@ def test_ht_refinement_truncated_layer_decode(rng):
 
 
 def test_ht_refinement_via_adapter(rng):
-    import go_dicom_codec_tpu as dc
+    import go_dicom_codec_jax as dc
     info = dc.FrameInfo(width=96, height=80, bits_allocated=16,
                         bits_stored=12)
     src = dc.MemoryPixelData(info=info)

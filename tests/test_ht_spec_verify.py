@@ -17,7 +17,7 @@ import re
 
 import pytest
 
-from go_dicom_codec_tpu.codecs.ht_tables import (DEC_LUT0, DEC_LUT1,
+from go_dicom_codec_jax.codecs.ht_tables import (DEC_LUT0, DEC_LUT1,
                                                  MEL_E, VLC_TBL0, VLC_TBL1)
 
 HERE = os.path.dirname(__file__)

@@ -7,15 +7,15 @@ interop byte-exact lossless decode requirement).
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu import MemoryPixelData, get_global_registry, uids
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
+from go_dicom_codec_jax import MemoryPixelData, get_global_registry, uids
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
                                                 decode_to_pixels)
-from go_dicom_codec_tpu.codecs.ht_tables import (DEC_LUT0, DEC_LUT1,
+from go_dicom_codec_jax.codecs.ht_tables import (DEC_LUT0, DEC_LUT1,
                                                  ENC_LUT0, VLC_TBL0)
-from go_dicom_codec_tpu.entropy.htcleanup import (HTCleanupDecoder,
+from go_dicom_codec_jax.entropy.htcleanup import (HTCleanupDecoder,
                                                   HTCleanupEncoder,
                                                   MELReader, MELWriter)
-from go_dicom_codec_tpu.frames import FrameInfo
+from go_dicom_codec_jax.frames import FrameInfo
 
 
 def test_vlc_tables_complete():

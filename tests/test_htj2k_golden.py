@@ -14,7 +14,7 @@ import os
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import J2KDecoder
+from go_dicom_codec_jax.codecs.jpeg2000 import J2KDecoder
 
 BASE = os.path.join(os.path.dirname(__file__), "..", "test-data",
                     "htj2k_interop")

@@ -10,13 +10,13 @@ test_htj2k.py exercise only end-to-end.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.entropy.htcleanup import (HTCleanupDecoder,
+from go_dicom_codec_jax.entropy.htcleanup import (HTCleanupDecoder,
                                                   HTCleanupEncoder,
                                                   MELReader, MELWriter,
                                                   MagSgnReader, MagSgnWriter,
                                                   VLCReader, VLCWriter,
                                                   _uvlc_code)
-from go_dicom_codec_tpu.errors import CorruptStreamError
+from go_dicom_codec_jax.errors import CorruptStreamError
 
 
 # ---- MEL adaptive run-length coder ------------------------------------------

@@ -9,8 +9,8 @@ DHT payload roundtrips.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.entropy import huffman as hf
-from go_dicom_codec_tpu.utils.npbits import BitReader
+from go_dicom_codec_jax.entropy import huffman as hf
+from go_dicom_codec_jax.utils.npbits import BitReader
 
 
 def _codes(tab):
@@ -73,7 +73,7 @@ def test_optimal_roundtrips_through_decode(rng):
     for s in syms:
         freq[s] += 1
     tab = hf.build_optimal_table(freq)
-    from go_dicom_codec_tpu.utils.npbits import pack_bits_msb
+    from go_dicom_codec_jax.utils.npbits import pack_bits_msb
 
     vals = np.asarray([int(tab.code_of[s]) for s in syms], dtype=np.int64)
     lens = np.asarray([int(tab.len_of[s]) for s in syms], dtype=np.int64)
@@ -108,7 +108,7 @@ def test_dht_payload_roundtrip():
 
 
 def test_parse_dht_rejects_truncated():
-    from go_dicom_codec_tpu.errors import CorruptStreamError
+    from go_dicom_codec_jax.errors import CorruptStreamError
 
     payload = hf.dht_payload([(0, 0, hf.DC_LUMA)])
     with pytest.raises(CorruptStreamError):

@@ -1,6 +1,6 @@
 """Decoder tests on inputs the repo's own encoder NEVER touched.
 
-The generators live in go_dicom_codec_tpu/testdata.py (role of
+The generators live in go_dicom_codec_jax/testdata.py (role of
 reference jpeg2000/testdata/: an importable package of hand-packed
 codestream builders + the spec-direct MQ and cleanup-pass coders).
 This module drives them through the decoders: since the streams are
@@ -11,8 +11,8 @@ compensating bug with the encode path on these inputs.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu import testdata as td
-from go_dicom_codec_tpu.codecs.jpeg2000 import J2KDecoder
+from go_dicom_codec_jax import testdata as td
+from go_dicom_codec_jax.codecs.jpeg2000 import J2KDecoder
 
 
 def _decode(stream):
@@ -94,7 +94,7 @@ def test_pattern_images_shapes_and_ranges():
 def test_pattern_roundtrip_through_production_codec():
     """The library patterns drive a full production J2K roundtrip —
     the generators and codecs agree on sample conventions."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import J2KEncodeParams, J2KEncoder
+    from go_dicom_codec_jax.codecs.jpeg2000 import J2KEncodeParams, J2KEncoder
     img = td.textured_image(33, 21, 12).astype(np.int32)
     enc = J2KEncoder(J2KEncodeParams(num_levels=2))
     stream = enc.encode(img, 33, 21, 1, 12)
@@ -113,7 +113,7 @@ def test_spec_mq_encoder_decodes_with_repo_decoder(seed, rng):
     (testdata.SpecMQEncoder, Annex C flowcharts) decode bit-exactly
     with entropy/mq.MQDecoder. Neither side shares code; only the
     published standard connects them."""
-    from go_dicom_codec_tpu.entropy.mq import MQDecoder
+    from go_dicom_codec_jax.entropy.mq import MQDecoder
 
     r = np.random.default_rng(900 + seed)
     n = int(r.integers(50, 600))

@@ -10,8 +10,8 @@ tools/interop.py --fixture clinical inside the pytest suite.
 import numpy as np
 import pytest
 
-import go_dicom_codec_tpu as dc
-from go_dicom_codec_tpu.tools.interop import (FORMAT_DEFINITIONS,
+import go_dicom_codec_jax as dc
+from go_dicom_codec_jax.tools.interop import (FORMAT_DEFINITIONS,
                                               _clinical_fixture)
 
 

@@ -17,7 +17,7 @@ import os
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import J2KDecoder
+from go_dicom_codec_jax.codecs.jpeg2000 import J2KDecoder
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "..", "test-data",
                        "ct1_kakadu.j2c")
@@ -74,9 +74,8 @@ def test_kakadu_decode_pinned(decoded):
         env = dict(os.environ, GDCT_DISABLE_NATIVE="1",
                    JAX_PLATFORMS="cpu")
         code = (
-            "import jax; jax.config.update('jax_platforms', 'cpu')\n"
             "import sys, numpy as np\n"
-            "from go_dicom_codec_tpu.codecs.jpeg2000 import J2KDecoder\n"
+            "from go_dicom_codec_jax.codecs.jpeg2000 import J2KDecoder\n"
             f"arr, _, _ = J2KDecoder().decode(open({FIXTURE!r},"
             " 'rb').read())\n"
             "sys.stdout.buffer.write(arr[:, :, 0].astype('<i4')"

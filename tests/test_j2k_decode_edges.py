@@ -10,11 +10,11 @@ import struct
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs import j2k_quant as jq
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
+from go_dicom_codec_jax.codecs import j2k_quant as jq
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
                                                 decode_to_pixels)
-from go_dicom_codec_tpu.codestream import j2k
-from go_dicom_codec_tpu.errors import CorruptStreamError
+from go_dicom_codec_jax.codestream import j2k
+from go_dicom_codec_jax.errors import CorruptStreamError
 
 
 def _img(rng, h=64, w=64, bits=12):
@@ -163,7 +163,7 @@ def test_truncated_main_header_raises(rng):
 
 
 def test_strict_truncated_body_raises_resilient_recovers(rng):
-    from go_dicom_codec_tpu.codecs.jpeg2000 import J2KDecoder
+    from go_dicom_codec_jax.codecs.jpeg2000 import J2KDecoder
 
     img, data = _encode(rng)
     cut = data[: int(len(data) * 0.6)]
@@ -263,9 +263,9 @@ def test_packed_decode_rejects_qcc_irreversible(rng):
     per-component QCC streams must fall back to the scalar decoder
     (which dequantizes per component) instead of silently using
     component 0's steps."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                     decode_to_packed)
-    from go_dicom_codec_tpu.errors import UnsupportedFormatError
+    from go_dicom_codec_jax.errors import UnsupportedFormatError
 
     rgb = rng.integers(0, 256, (32, 32, 3)).astype(np.uint8)
     s = J2KEncoder(J2KEncodeParams(num_levels=2, lossless=False,
@@ -290,9 +290,9 @@ def test_hostile_siz_depth_rejected_typed():
     beyond the int32 reconstruction (inv DC shift adds 1 << (depth-1)).
     Every decode entry must reject it typed instead of overflowing
     mid-decode."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (
+    from go_dicom_codec_jax.codecs.jpeg2000 import (
         J2KDecoder, decode_to_component_tiles, decode_to_packed_tiles)
-    from go_dicom_codec_tpu.errors import UnsupportedFormatError
+    from go_dicom_codec_jax.errors import UnsupportedFormatError
 
     rng = np.random.default_rng(7)
     _, data = _encode(rng, h=32, w=32)

@@ -7,13 +7,13 @@ ROI subsystem tests (roi*.go usage).
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.j2k_roi import (ROIRegion, combined_mask,
+from go_dicom_codec_jax.codecs.j2k_roi import (ROIRegion, combined_mask,
                                                rasterize_polygon,
                                                unshift_maxshift)
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
                                                 J2KEncoder, decode_to_pixels)
-from go_dicom_codec_tpu.codestream import j2k
-from go_dicom_codec_tpu.t2.pcrd import (allocate_layers,
+from go_dicom_codec_jax.codestream import j2k
+from go_dicom_codec_jax.t2.pcrd import (allocate_layers,
                                         layer_budgets_from_rates,
                                         pass_slopes)
 
@@ -264,7 +264,7 @@ def test_general_scaling_component_filter(rng):
 
 
 def test_roi_com_metadata_roundtrip():
-    from go_dicom_codec_tpu.codecs.j2k_roi import (parse_roi_com,
+    from go_dicom_codec_jax.codecs.j2k_roi import (parse_roi_com,
                                                    write_roi_com)
     regs = [ROIRegion(shape="rect", rect=(10, 20, 30, 40), components=[0]),
             ROIRegion(shape="polygon", polygon=[(1, 2), (50, 3), (25, 60)])]
@@ -310,7 +310,7 @@ def test_multi_binding_mct_roundtrip(rng):
     encoder.go:111-121, applyMCTBindings :527): each group carries its
     own matrix/offsets via MCT records + one MCC collection each + MCO
     order; decoder inverts in reverse MCO order."""
-    from go_dicom_codec_tpu.codecs.mct_builder import MCTBindingBuilder
+    from go_dicom_codec_jax.codecs.mct_builder import MCTBindingBuilder
 
     rgb = rng.integers(0, 256, (64, 64, 3)).astype(np.uint8)
     b1 = MCTBindingBuilder().components([0, 1]).matrix(
@@ -332,7 +332,7 @@ def test_block_encoder_factory(rng):
     encoder.go:94-103): factory(width, height) supplies the block
     encoder; like the reference, the factory object receives no band
     orientation (intended for orientation-agnostic coders such as HT)."""
-    from go_dicom_codec_tpu.entropy.ebcot import T1Encoder
+    from go_dicom_codec_jax.entropy.ebcot import T1Encoder
 
     img = rng.integers(0, 4096, (64, 64)).astype("<u2")
     calls = []
@@ -373,8 +373,8 @@ def test_layer_budget_strategies(strategy, rng):
 def test_block_decoder_factory_injection(rng):
     """Reference decoder.go:63-88 SetBlockDecoderFactory: a user-supplied
     factory overrides the built-in block decoders — classic T1 and HT."""
-    from go_dicom_codec_tpu.entropy.ebcot import T1Decoder
-    from go_dicom_codec_tpu.entropy.htcleanup import HTCleanupDecoder
+    from go_dicom_codec_jax.entropy.ebcot import T1Decoder
+    from go_dicom_codec_jax.entropy.htcleanup import HTCleanupDecoder
 
     img = (np.cumsum(rng.integers(-9, 10, (64, 64)), axis=1)
            % 4096).astype("<u2")
@@ -422,8 +422,8 @@ def test_maxshift_roi_16bit_roundtrip(rng):
     numbps past 31 bits (Srgn = depth+3), so the native T1 decode must
     return int64 for those blocks — the int32 fast path silently
     wrapped the scaled magnitudes (maxerr 43264 on this exact shape)."""
-    from go_dicom_codec_tpu.codecs.j2k_roi import ROIRegion
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams,
+    from go_dicom_codec_jax.codecs.j2k_roi import ROIRegion
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams,
                                                     J2KEncoder,
                                                     decode_to_pixels)
 
@@ -443,8 +443,8 @@ def test_adapter_defaults_bypass_style(rng):
     code-blocks — measured faster AND smaller than style 0 — while ROI
     encodes fall back to pure MQ (foreign decoders disagree with the
     ROI plane-skip schedule under bypass)."""
-    import go_dicom_codec_tpu as dc
-    from go_dicom_codec_tpu.codestream import j2k
+    import go_dicom_codec_jax as dc
+    from go_dicom_codec_jax.codestream import j2k
 
     img = rng.integers(0, 4096, (64, 64)).astype("<u2")
     info = dc.FrameInfo(width=64, height=64, bits_allocated=16,
@@ -465,7 +465,7 @@ def test_adapter_defaults_bypass_style(rng):
 
     assert cod_style() == 0x01                       # bypass default
     assert cod_style(dc.Parameters(cb_style=0)) == 0  # explicit override
-    from go_dicom_codec_tpu.codecs.j2k_roi import ROIRegion
+    from go_dicom_codec_jax.codecs.j2k_roi import ROIRegion
     roi = dc.Parameters(
         roi_regions=[ROIRegion(shape="rect", rect=(8, 8, 24, 24))],
         roi_shift=6)

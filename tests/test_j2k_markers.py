@@ -5,11 +5,11 @@ main-header dispatch :104-306, types.go per-component resolution
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
                                                 J2KEncoder, band_mb)
-from go_dicom_codec_tpu.codecs.j2k_geometry import build_tile_geometry
-from go_dicom_codec_tpu.codestream import j2k
-from go_dicom_codec_tpu.t2.packets import (BlockState, PrecinctState,
+from go_dicom_codec_jax.codecs.j2k_geometry import build_tile_geometry
+from go_dicom_codec_jax.codestream import j2k
+from go_dicom_codec_jax.t2.packets import (BlockState, PrecinctState,
                                            decode_packet, poc_progression_order,
                                            progression_order)
 

@@ -9,7 +9,7 @@ quantize/dequantize cases.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs import j2k_quant as q
+from go_dicom_codec_jax.codecs import j2k_quant as q
 
 
 def test_quality_monotonicity_ll_step():

@@ -10,11 +10,11 @@ import math
 import numpy as np
 import pytest
 
-import go_dicom_codec_tpu as dc
-from go_dicom_codec_tpu.codecs import j2k_quant as jq
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
+import go_dicom_codec_jax as dc
+from go_dicom_codec_jax.codecs import j2k_quant as jq
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
                                                 decode_to_pixels)
-from go_dicom_codec_tpu.codestream import j2k
+from go_dicom_codec_jax.codestream import j2k
 
 UID_LOSSY = "1.2.840.10008.1.2.4.91"
 
@@ -47,7 +47,7 @@ def test_subband_steps_override_qcd(rng):
                                  dict(num_levels=levels,
                                       subband_steps=steps))
     qcd = _parse_qcd(stream)
-    from go_dicom_codec_tpu.codecs.j2k_geometry import band_gain
+    from go_dicom_codec_jax.codecs.j2k_geometry import band_gain
     want = [jq.encode_step(s, 12 + band_gain(b))
             for s, (r, b) in zip(steps, jq.band_sequence(levels))]
     assert [tuple(t) for t in qcd.steps] == want
@@ -162,7 +162,7 @@ def test_htj2k_codestream_uses_openjph_qcd(rng):
 def test_rate_levels_convenience_mapping(rng):
     """fo-dicom rate/rate_levels → layer_rates translation (reference
     lossless/codec.go:337-376)."""
-    from go_dicom_codec_tpu.codecs.j2k_adapters import openjpeg_layer_rates
+    from go_dicom_codec_jax.codecs.j2k_adapters import openjpeg_layer_rates
 
     # leading levels above the rate become intermediate layers; the
     # final layer is rate scaled by stored/allocated bits

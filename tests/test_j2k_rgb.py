@@ -8,7 +8,7 @@ color bars, all through the public encoder/decoder pair.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
                                                 J2KEncoder)
 
 

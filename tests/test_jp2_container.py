@@ -14,10 +14,10 @@ import struct
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codestream import j2k
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
+from go_dicom_codec_jax.codestream import j2k
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
                                                 J2KEncoder)
-from go_dicom_codec_tpu.errors import CorruptStreamError
+from go_dicom_codec_jax.errors import CorruptStreamError
 
 
 def _img(bits=8, h=64, w=48, comps=1, seed=3):
@@ -187,7 +187,7 @@ def test_container_param_validated_before_encoding():
 
 
 def test_pipelined_encoder_honors_container():
-    from go_dicom_codec_tpu.pipeline import encode_frames_pipelined
+    from go_dicom_codec_jax.pipeline import encode_frames_pipelined
     imgs = np.stack([(_img(8, h=32, w=32, seed=s)).astype(np.int32)
                      for s in range(3)])
     p = J2KEncodeParams(container="jp2")
@@ -199,7 +199,7 @@ def test_pipelined_encoder_honors_container():
 
 
 def test_batched_decoders_unwrap_transparently():
-    from go_dicom_codec_tpu.pipeline import decode_frames_pipelined
+    from go_dicom_codec_jax.pipeline import decode_frames_pipelined
     imgs = [(_img(8, h=32, w=32, seed=s)).astype(np.int32)
             for s in range(3)]
     enc = J2KEncoder(J2KEncodeParams(container="jp2"))

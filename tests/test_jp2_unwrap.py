@@ -17,9 +17,9 @@ import struct
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import decode_to_pixels
-from go_dicom_codec_tpu.codestream import j2k
-from go_dicom_codec_tpu.errors import CorruptStreamError
+from go_dicom_codec_jax.codecs.jpeg2000 import decode_to_pixels
+from go_dicom_codec_jax.codestream import j2k
+from go_dicom_codec_jax.errors import CorruptStreamError
 
 PIL_Image = pytest.importorskip("PIL.Image")
 
@@ -97,7 +97,7 @@ def test_jp2_truncated_xlbox_raises():
 
 
 def test_adapter_decodes_jp2_frame():
-    import go_dicom_codec_tpu as dc
+    import go_dicom_codec_jax as dc
     rng = np.random.default_rng(4)
     img = rng.integers(0, 256, size=(48, 56)).astype(np.uint8)
     jp2 = _jp2(img)

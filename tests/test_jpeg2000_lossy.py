@@ -9,12 +9,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from go_dicom_codec_tpu import MemoryPixelData, get_global_registry, uids
-from go_dicom_codec_tpu.codecs import j2k_quant as jq
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
+from go_dicom_codec_jax import MemoryPixelData, get_global_registry, uids
+from go_dicom_codec_jax.codecs import j2k_quant as jq
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
                                                 decode_to_pixels)
-from go_dicom_codec_tpu.frames import FrameInfo
-from go_dicom_codec_tpu.ops.dwt97 import (fwd97_1d, fwd97_2d,
+from go_dicom_codec_jax.frames import FrameInfo
+from go_dicom_codec_jax.ops.dwt97 import (fwd97_1d, fwd97_2d,
                                           fwd97_multilevel, inv97_1d,
                                           inv97_2d, inv97_multilevel)
 
@@ -134,7 +134,7 @@ def test_registry_lossy(rng):
 
 
 def test_lossy_rejects_signed():
-    from go_dicom_codec_tpu.errors import UnsupportedFormatError
+    from go_dicom_codec_jax.errors import UnsupportedFormatError
     info = FrameInfo(width=8, height=8, bits_allocated=16,
                      pixel_representation=1)
     codec = get_global_registry().get_codec(uids.JPEG_2000_LOSSY)

@@ -7,11 +7,11 @@ lossless14sv1 16-bit tests, extended native12_test.go).
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu import MemoryPixelData, get_global_registry, uids
-from go_dicom_codec_tpu.codecs import jpeg_extended as jx
-from go_dicom_codec_tpu.codecs import jpeg_lossless as jl
-from go_dicom_codec_tpu.frames import FrameInfo
-from go_dicom_codec_tpu.ops.lossless_predict import (encode_diffs,
+from go_dicom_codec_jax import MemoryPixelData, get_global_registry, uids
+from go_dicom_codec_jax.codecs import jpeg_extended as jx
+from go_dicom_codec_jax.codecs import jpeg_lossless as jl
+from go_dicom_codec_jax.frames import FrameInfo
+from go_dicom_codec_jax.ops.lossless_predict import (encode_diffs,
                                                      reconstruct,
                                                      select_best_predictor)
 

@@ -8,13 +8,13 @@ test_huffman_units.py; this file pins the scalar tables/formula layer.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg_common import (CHROMA_QUANT, LUMA_QUANT,
+from go_dicom_codec_jax.codecs.jpeg_common import (CHROMA_QUANT, LUMA_QUANT,
                                                    dqt_payload, parse_dqt,
                                                    scale_quant_table,
                                                    sof_payload, sos_payload)
-from go_dicom_codec_tpu.errors import CorruptStreamError, InvalidQualityError
-from go_dicom_codec_tpu.ops import dct_int
-from go_dicom_codec_tpu.ops.lossless_predict import (_predict, encode_diffs,
+from go_dicom_codec_jax.errors import CorruptStreamError, InvalidQualityError
+from go_dicom_codec_jax.ops import dct_int
+from go_dicom_codec_jax.ops.lossless_predict import (_predict, encode_diffs,
                                                      reconstruct,
                                                      select_best_predictor)
 
@@ -234,7 +234,7 @@ def _patch_after(stream: bytes, marker: bytes, rel: int, val: int) -> bytes:
 
 
 def test_baseline_zero_sampling_factor_is_typed():
-    from go_dicom_codec_tpu.codecs import jpeg_baseline
+    from go_dicom_codec_jax.codecs import jpeg_baseline
     img = np.arange(64 * 64, dtype=np.uint8).reshape(64, 64)
     s = jpeg_baseline.encode(img.tobytes(), 64, 64, 1, 90)
     # SOF0 payload: precision(1) H(2) W(2) Nf(1) then [Ci, HiVi, Tqi]
@@ -247,7 +247,7 @@ def test_baseline_zero_sampling_factor_is_typed():
 
 
 def test_baseline_zero_dimensions_are_typed():
-    from go_dicom_codec_tpu.codecs import jpeg_baseline
+    from go_dicom_codec_jax.codecs import jpeg_baseline
     img = np.arange(64 * 64, dtype=np.uint8).reshape(64, 64)
     s = jpeg_baseline.encode(img.tobytes(), 64, 64, 1, 90)
     bad = bytearray(s)
@@ -258,7 +258,7 @@ def test_baseline_zero_dimensions_are_typed():
 
 
 def test_p14_invalid_precision_is_typed():
-    from go_dicom_codec_tpu.codecs import jpeg_lossless
+    from go_dicom_codec_jax.codecs import jpeg_lossless
     img = np.arange(32 * 32, dtype=np.uint16).reshape(32, 32) % 4096
     s = jpeg_lossless.encode(img.astype("<u2").tobytes(), 32, 32, 1, 12,
                              predictor=1)
@@ -268,7 +268,7 @@ def test_p14_invalid_precision_is_typed():
 
 
 def test_jls_invalid_depth_is_typed():
-    from go_dicom_codec_tpu.codecs import jpegls
+    from go_dicom_codec_jax.codecs import jpegls
     img = np.arange(32 * 32, dtype=np.uint16).reshape(32, 32) % 4096
     s = jpegls.encode(img.astype("<u2").tobytes(), 32, 32, 1, 12)
     bad = _patch_after(s, b"\xff\xf7", 0, 0)  # depth := 0

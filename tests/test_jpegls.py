@@ -7,9 +7,9 @@ nearlossless/near_all_test.go |err|<=NEAR sweep).
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu import MemoryPixelData, get_global_registry, uids
-from go_dicom_codec_tpu.codecs.jpegls import Traits, decode, encode
-from go_dicom_codec_tpu.frames import FrameInfo
+from go_dicom_codec_jax import MemoryPixelData, get_global_registry, uids
+from go_dicom_codec_jax.codecs.jpegls import Traits, decode, encode
+from go_dicom_codec_jax.frames import FrameInfo
 
 
 def test_traits_defaults_8bit():
@@ -135,6 +135,6 @@ def test_registry_near_lossless(rng):
 
 
 def test_decoder_rejects_non_jls():
-    from go_dicom_codec_tpu.errors import CodecError
+    from go_dicom_codec_jax.errors import CodecError
     with pytest.raises(CodecError):
         decode(b"\xff\xd8\xff\xc0\x00\x0b" + bytes(9))

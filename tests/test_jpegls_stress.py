@@ -9,7 +9,7 @@ bit depth — all bit-exact.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs import jpegls as jls
+from go_dicom_codec_jax.codecs import jpegls as jls
 
 
 def _roundtrip(img, bits, near=0):

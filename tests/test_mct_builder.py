@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
                                                 J2KEncoder)
-from go_dicom_codec_tpu.codecs.mct_builder import MCTBindingBuilder
+from go_dicom_codec_jax.codecs.mct_builder import MCTBindingBuilder
 
 
 def test_builder_derives_inverse():

@@ -10,7 +10,7 @@ matrix path in isolation.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codestream.j2k import (MCT_ARRAY_DECORRELATE,
+from go_dicom_codec_jax.codestream.j2k import (MCT_ARRAY_DECORRELATE,
                                                MCT_ARRAY_OFFSET,
                                                MCT_ELEM_F32, MCT_ELEM_F64,
                                                MCT_ELEM_I16, MCT_ELEM_I32,
@@ -20,8 +20,8 @@ from go_dicom_codec_tpu.codestream.j2k import (MCT_ARRAY_DECORRELATE,
                                                write_mcc_record,
                                                write_mco_record,
                                                write_mct_record)
-from go_dicom_codec_tpu.errors import CorruptStreamError
-from go_dicom_codec_tpu.ops.mct import (mct_matrix_forward,
+from go_dicom_codec_jax.errors import CorruptStreamError
+from go_dicom_codec_jax.ops.mct import (mct_matrix_forward,
                                         mct_matrix_inverse)
 
 
@@ -170,7 +170,7 @@ def test_matrix_int32_values_exact_in_float32():
 
 def test_matrix_rct_equivalent_matrix(rng):
     """The ICT as a custom matrix matches the dedicated ICT constants."""
-    from go_dicom_codec_tpu.ops.mct import ict_forward
+    from go_dicom_codec_jax.ops.mct import ict_forward
     m = np.array([[0.299, 0.587, 0.114],
                   [-0.168736, -0.331264, 0.5],
                   [0.5, -0.418688, -0.081312]], dtype=np.float32)

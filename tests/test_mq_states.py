@@ -11,7 +11,7 @@ state machine over bit-pattern roundtrips in every mode.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.entropy.mq import (NLPS, NMPS, QE, SWITCH,
+from go_dicom_codec_jax.entropy.mq import (NLPS, NMPS, QE, SWITCH,
                                            MQDecoder, MQEncoder)
 
 # Independent transcription of ISO/IEC 15444-1 Table C.2 (also JBIG2
@@ -155,7 +155,7 @@ def test_mq_encoder_decoder_context_agreement(rng):
 
 def test_mq_bypass_roundtrip(rng):
     """Lazy (raw) mode: bypass bits survive byte-stuffing."""
-    from go_dicom_codec_tpu.entropy.mq import RawDecoder
+    from go_dicom_codec_jax.entropy.mq import RawDecoder
 
     bits = rng.integers(0, 2, 333).tolist()
     enc = MQEncoder(1)
@@ -240,8 +240,8 @@ def test_mq_single_byte_streams():
 def test_mq_native_python_byte_parity(rng):
     """The native MQ (inside T1) and Python MQ produce identical bytes —
     via the T1 wrapper, the only public native MQ surface."""
-    from go_dicom_codec_tpu.entropy.ebcot import T1Encoder
-    from go_dicom_codec_tpu.native import get_lib, t1_encode_native
+    from go_dicom_codec_jax.entropy.ebcot import T1Encoder
+    from go_dicom_codec_jax.native import get_lib, t1_encode_native
 
     if get_lib() is None:
         pytest.skip("native unavailable")

@@ -10,12 +10,12 @@ registry codec) and its EncodeComponents surface (encoder.go takes
 import numpy as np
 import pytest
 
-import go_dicom_codec_tpu as dc
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
+import go_dicom_codec_jax as dc
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
                                                 J2KEncoder)
-from go_dicom_codec_tpu.codecs.mct_builder import MCTBinding
-from go_dicom_codec_tpu.codestream import j2k
-from go_dicom_codec_tpu.errors import UnsupportedFormatError
+from go_dicom_codec_jax.codecs.mct_builder import MCTBinding
+from go_dicom_codec_jax.codestream import j2k
+from go_dicom_codec_jax.errors import UnsupportedFormatError
 
 
 @pytest.mark.parametrize("ncomp", [2, 4, 5])

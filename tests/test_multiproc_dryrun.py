@@ -1,4 +1,4 @@
-"""Two-process DCN-analogue sharding (SURVEY §2.10-3 multi-host).
+"""Two-process multi-host sharding (SURVEY §2.10-3).
 
 Runs tools/multiproc_dryrun.py: two OS processes join one
 jax.distributed coordinator over a global 8-device CPU mesh, the
@@ -17,7 +17,7 @@ def test_two_process_sharded_encode_byte_identity():
     # the tool sets its own JAX env per child; the parent needs none
     env.pop("GDCT_MP_ROLE", None)
     r = subprocess.run(
-        [sys.executable, "-m", "go_dicom_codec_tpu.tools.multiproc_dryrun"],
+        [sys.executable, "-m", "go_dicom_codec_jax.tools.multiproc_dryrun"],
         capture_output=True, text=True, timeout=560, env=env,
         cwd=os.path.join(os.path.dirname(__file__), ".."))
     assert r.returncode == 0, r.stdout + r.stderr

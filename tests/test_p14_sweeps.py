@@ -9,7 +9,7 @@ fixed-predictor contract.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs import jpeg_lossless as jl
+from go_dicom_codec_jax.codecs import jpeg_lossless as jl
 
 
 def _roundtrip(img, bits, predictor=1):
@@ -67,7 +67,7 @@ def test_auto_select_predictor_roundtrip(rng):
 def test_sv1_registry_equals_p14_predictor1(rng):
     """SV1 is P14 restricted to predictor 1 (lossless14sv1/encoder.go):
     its registry streams decode through the shared P14 decoder."""
-    import go_dicom_codec_tpu as dc
+    import go_dicom_codec_jax as dc
 
     img = (np.cumsum(rng.integers(-5, 6, (40, 40)), axis=1)
            % 4096).astype("<u2")

@@ -12,14 +12,14 @@ quantize/dequantize error diagnostics).
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs import j2k_quant as jq
-from go_dicom_codec_tpu.codecs.j2k_geometry import build_tile_geometry
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
+from go_dicom_codec_jax.codecs import j2k_quant as jq
+from go_dicom_codec_jax.codecs.j2k_geometry import build_tile_geometry
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
                                                 band_mb, decode_to_pixels)
-from go_dicom_codec_tpu.codestream import j2k
-from go_dicom_codec_tpu.entropy.ebcot import PassInfo
-from go_dicom_codec_tpu.ops.dwt53 import fwd53_multilevel
-from go_dicom_codec_tpu.t2.packets import (BlockState, PrecinctState,
+from go_dicom_codec_jax.codestream import j2k
+from go_dicom_codec_jax.entropy.ebcot import PassInfo
+from go_dicom_codec_jax.ops.dwt53 import fwd53_multilevel
+from go_dicom_codec_jax.t2.packets import (BlockState, PrecinctState,
                                            decode_packet, progression_order)
 
 

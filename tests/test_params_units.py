@@ -8,8 +8,8 @@ classes' defaults.
 
 import pytest
 
-from go_dicom_codec_tpu.errors import InvalidParameterError
-from go_dicom_codec_tpu.params import (Parameters, optional_int,
+from go_dicom_codec_jax.errors import InvalidParameterError
+from go_dicom_codec_jax.params import (Parameters, optional_int,
                                        require_range)
 
 
@@ -66,7 +66,7 @@ def test_optional_int_coercion():
 
 
 def test_baseline_parameters_validate():
-    from go_dicom_codec_tpu.codecs.jpeg_baseline import \
+    from go_dicom_codec_jax.codecs.jpeg_baseline import \
         JPEGBaselineParameters
 
     JPEGBaselineParameters(quality=50).validate()
@@ -76,7 +76,7 @@ def test_baseline_parameters_validate():
 
 
 def test_j2k_params_fluent_and_clamp():
-    from go_dicom_codec_tpu.codecs.jpeg2000 import J2KEncodeParams
+    from go_dicom_codec_jax.codecs.jpeg2000 import J2KEncodeParams
 
     p = J2KEncodeParams(num_levels=5)
     # small images clamp levels like reference lossy/codec.go:392
@@ -85,7 +85,7 @@ def test_j2k_params_fluent_and_clamp():
 
 
 def test_jls_near_parameter():
-    from go_dicom_codec_tpu.codecs.jpegls import JPEGLSParameters
+    from go_dicom_codec_jax.codecs.jpegls import JPEGLSParameters
 
     p = JPEGLSParameters(near=3)
     assert p.get_parameter("near") == 3
@@ -98,7 +98,7 @@ def test_jls_near_parameter_surface():
     and custom parameter passthrough."""
     import pytest
 
-    from go_dicom_codec_tpu.codecs.jpegls import JPEGLSParameters
+    from go_dicom_codec_jax.codecs.jpegls import JPEGLSParameters
 
     p = JPEGLSParameters()
     assert p.near == 0            # default is lossless
@@ -120,8 +120,8 @@ def test_jls_lossless_uid_forces_near_zero(rng=None):
     base class guards it — jpegls.py _JPEGLSBase)."""
     import numpy as np
 
-    import go_dicom_codec_tpu as dc
-    from go_dicom_codec_tpu.codecs.jpegls import JPEGLSParameters
+    import go_dicom_codec_jax as dc
+    from go_dicom_codec_jax.codecs.jpegls import JPEGLSParameters
 
     img = (np.arange(32 * 32, dtype=np.uint8) % 251).reshape(32, 32)
     info = dc.FrameInfo(width=32, height=32, bits_allocated=8,

@@ -8,7 +8,7 @@ and test_jpeg2000_lossy.py; this file pins the slope/threshold machinery.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.t2.pcrd import (PassPoint, allocate_layers,
+from go_dicom_codec_jax.t2.pcrd import (PassPoint, allocate_layers,
                                         layer_budgets_from_rates, pass_slopes)
 
 

@@ -7,8 +7,8 @@ benchmarks.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import decode_to_pixels
-from go_dicom_codec_tpu.pipeline import (decode_frames_pipelined,
+from go_dicom_codec_jax.codecs.jpeg2000 import decode_to_pixels
+from go_dicom_codec_jax.pipeline import (decode_frames_pipelined,
                                          encode_frames_pipelined)
 
 
@@ -79,8 +79,8 @@ def test_pipeline_nonsquare_odd_dims(rng):
 def test_pipeline_jpeg_batched_matches_per_frame(rng):
     """The batched JPEG pipeline's streams equal the per-frame encoder's
     (the integer islow DCT is deterministic across lanes)."""
-    from go_dicom_codec_tpu.codecs.jpeg_baseline import encode
-    from go_dicom_codec_tpu.pipeline import encode_frames_pipelined_jpeg
+    from go_dicom_codec_jax.codecs.jpeg_baseline import encode
+    from go_dicom_codec_jax.pipeline import encode_frames_pipelined_jpeg
 
     frames = rng.integers(0, 256, (5, 40, 48)).astype(np.uint8)
     batched = list(encode_frames_pipelined_jpeg(frames, quality=85))
@@ -105,7 +105,7 @@ def test_pipeline_decode_lossy_matches_scalar(ncomp, lane, rng):
     """Round-4: the decode pipeline also carries irreversible streams
     (host per-band dequant + 9/7 inverse on either lane), within one
     rounding tie of the scalar decoder on every lane."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                     J2KEncodeParams,
                                                     J2KEncoder)
 
@@ -122,7 +122,7 @@ def test_pipeline_decode_lossy_matches_scalar(ncomp, lane, rng):
 
 
 def test_pipeline_decode_rejects_mixed_transforms(rng):
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams,
                                                     J2KEncoder)
 
     img = rng.integers(0, 256, (32, 32)).astype(np.int32)
@@ -139,7 +139,7 @@ def test_pipeline_decode_lossy_range_edges_no_wrap(lane, rng):
     """Regression: lossy reconstructions that overshoot the declared
     range (values at 0 / 4095) must clip, not wrap, through the 16-bit
     device readback (an unclipped -1 wrapped to 65535)."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams,
                                                     J2KEncoder)
 
     img = np.zeros((3, 64, 64), dtype=np.int32)
@@ -155,7 +155,7 @@ def test_pipeline_decode_lossy_range_edges_no_wrap(lane, rng):
 def test_htj2k_adapter_batched_decode_matches_scalar(rng):
     """Multi-frame HT decode through the registry uses the batched
     pipeline; bytes equal the per-frame scalar path (lossless)."""
-    import go_dicom_codec_tpu as dc
+    import go_dicom_codec_jax as dc
 
     info = dc.FrameInfo(width=48, height=48, bits_allocated=16,
                         bits_stored=12)
@@ -183,7 +183,7 @@ def test_pipeline_encode_honors_cb_style(style, rng):
     cb_style, so the adapters' DEFAULT (lazy 0x01) multi-frame encodes
     never matched — and were gated off — the batched path. All styles
     are byte-identical to the scalar encoder now."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams,
                                                     J2KEncoder)
 
     frames = (np.cumsum(rng.integers(-9, 10, (3, 64, 64)), axis=2)
@@ -197,7 +197,7 @@ def test_pipeline_encode_honors_cb_style(style, rng):
 def test_adapter_default_multiframe_uses_batched_path(rng):
     """The registry .90 adapter's default params (lazy code-blocks) now
     take the batched encode path, byte-identical to per-frame encodes."""
-    import go_dicom_codec_tpu as dc
+    import go_dicom_codec_jax as dc
 
     info = dc.FrameInfo(width=48, height=48, bits_allocated=16,
                         bits_stored=12)

@@ -17,10 +17,10 @@ import struct
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                 J2KEncodeParams, J2KEncoder)
-from go_dicom_codec_tpu.codestream import j2k
-from go_dicom_codec_tpu.errors import CorruptStreamError
+from go_dicom_codec_jax.codestream import j2k
+from go_dicom_codec_jax.errors import CorruptStreamError
 
 
 def _img(h=160, w=150, seed=3, bits=12):

@@ -11,9 +11,9 @@ reference's getPrecinctSizeExponents rule (encoder.go:1516-1569).
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
                                                 decode_to_pixels)
-from go_dicom_codec_tpu.codestream import j2k
+from go_dicom_codec_jax.codestream import j2k
 
 
 def _gradient(w, h):

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import J2KEncodeParams, J2KEncoder
-from go_dicom_codec_tpu.utils import profiling
+from go_dicom_codec_jax.codecs.jpeg2000 import J2KEncodeParams, J2KEncoder
+from go_dicom_codec_jax.utils import profiling
 
 
 def test_stage_timer_accumulates():
@@ -38,11 +38,11 @@ def test_transfer_policy_measured_fake_regimes(monkeypatch):
     and check the decision + the logged policy."""
     import jax
 
-    from go_dicom_codec_tpu import pipeline as pl
-    from go_dicom_codec_tpu.utils import profiling as prof
+    from go_dicom_codec_jax import pipeline as pl
+    from go_dicom_codec_jax.utils import profiling as prof
 
     monkeypatch.setattr(pl, "_POLICY", None)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
 
     # fast-interconnect regime: transfers are cheap -> device preferred
     pol = pl.transfer_policy(force_remeasure=True,
@@ -51,7 +51,7 @@ def test_transfer_policy_measured_fake_regimes(monkeypatch):
     assert pol["prefer_device"] is True
     assert prof.EVENTS["pipeline.transfer_policy"]["prefer_device"] is True
 
-    # tunnel-like regime: transfer dwarfs the host transform -> host
+    # slow-transfer regime: transfer dwarfs the host transform -> host
     pol = pl.transfer_policy(force_remeasure=True,
                              _probe_roundtrip=lambda: 35.0,
                              _probe_host=lambda: 3.0)

@@ -5,8 +5,8 @@ import io
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs import jpeg_progressive as jp
-from go_dicom_codec_tpu.errors import (CorruptStreamError,
+from go_dicom_codec_jax.codecs import jpeg_progressive as jp
+from go_dicom_codec_jax.errors import (CorruptStreamError,
                                        UnsupportedFormatError)
 
 PIL_Image = pytest.importorskip("PIL.Image")

@@ -11,11 +11,11 @@ a full decode (see BENCHMARKS.md).
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                 J2KEncodeParams, J2KEncoder,
                                                 decode_to_pixels)
-from go_dicom_codec_tpu.ops.dwt53 import fwd53_multilevel, ll_dimensions
-from go_dicom_codec_tpu.errors import UnsupportedFormatError
+from go_dicom_codec_jax.ops.dwt53 import fwd53_multilevel, ll_dimensions
+from go_dicom_codec_jax.errors import UnsupportedFormatError
 
 
 def _img(h=200, w=190, seed=0, bits=12):
@@ -108,7 +108,7 @@ def test_reduce_lossy_and_layers_shape_and_scale():
 
 
 def test_reduce_maxshift_roi_exact():
-    from go_dicom_codec_tpu.codecs.j2k_roi import ROIRegion
+    from go_dicom_codec_jax.codecs.j2k_roi import ROIRegion
     img = _img()
     s = J2KEncoder(J2KEncodeParams(
         roi_regions=[ROIRegion(shape="rect", rect=(8, 8, 64, 64))]
@@ -126,7 +126,7 @@ def test_reduce_beyond_levels_raises():
 
 
 def test_reduce_general_scaling_roi_raises():
-    from go_dicom_codec_tpu.codecs.j2k_roi import ROIRegion
+    from go_dicom_codec_jax.codecs.j2k_roi import ROIRegion
     img = _img()
     s = J2KEncoder(J2KEncodeParams(
         roi_style="general",
@@ -148,7 +148,7 @@ def test_reduce_zero_matches_default():
 
 @pytest.mark.parametrize("r", [1, 2])
 def test_reduce_pipelined_matches_scalar(r):
-    from go_dicom_codec_tpu.pipeline import decode_frames_pipelined
+    from go_dicom_codec_jax.pipeline import decode_frames_pipelined
     imgs = [_img(seed=i) for i in range(3)]
     enc = J2KEncoder(J2KEncodeParams(num_levels=4))
     streams = [enc.encode(im, 190, 200, 1, 12) for im in imgs]
@@ -165,7 +165,7 @@ def test_reduce_pipelined_matches_scalar(r):
     (dict(lossless=False, quality=70), False),
 ])
 def test_reduce_sharded_matches_scalar(kw, exact):
-    from go_dicom_codec_tpu.parallel.mesh import (decode_frames_sharded,
+    from go_dicom_codec_jax.parallel.mesh import (decode_frames_sharded,
                                                   make_mesh)
     imgs = [_img(seed=i) for i in range(3)]
     enc = J2KEncoder(J2KEncodeParams(num_levels=4, **kw))
@@ -189,7 +189,7 @@ def test_reduce_lossy_pipelined_lanes_agree():
     declared range, the documented batched-lossy policy — the device
     lane's clip was once disabled under reduce while the host lane's
     stayed)."""
-    from go_dicom_codec_tpu.pipeline import decode_frames_pipelined
+    from go_dicom_codec_jax.pipeline import decode_frames_pipelined
     rng = np.random.default_rng(6)
     # step image: the reduced LL rings hard past the declared range
     img = np.where(np.arange(200)[:, None] % 32 < 16, 4095, 0

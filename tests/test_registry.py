@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu import (
+from go_dicom_codec_jax import (
     CodecNotFoundError,
     FrameInfo,
     MemoryPixelData,
@@ -11,7 +11,7 @@ from go_dicom_codec_tpu import (
     get_global_registry,
     uids,
 )
-from go_dicom_codec_tpu.frames import array_to_frame, frame_to_array
+from go_dicom_codec_jax.frames import array_to_frame, frame_to_array
 
 
 def test_lookup_unknown_uid_raises():

@@ -9,8 +9,8 @@ widths, and a frame-loop sweep over every registered lossless codec
 import numpy as np
 import pytest
 
-import go_dicom_codec_tpu as dc
-from go_dicom_codec_tpu.codecs.rle import decode_frame, encode_frame
+import go_dicom_codec_jax as dc
+from go_dicom_codec_jax.codecs.rle import decode_frame, encode_frame
 
 
 @pytest.mark.parametrize("bits_allocated", [8, 16, 32])

@@ -8,7 +8,7 @@ file pins the geometry/rasterization/shift primitives in isolation.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.j2k_roi import (ROIRegion, apply_maxshift,
+from go_dicom_codec_jax.codecs.j2k_roi import (ROIRegion, apply_maxshift,
                                                band_roi_mask, combined_mask,
                                                parse_roi_com,
                                                rasterize_polygon,

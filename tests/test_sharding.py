@@ -1,6 +1,6 @@
 """Multi-chip sharding tests on the virtual 8-device CPU mesh.
 
-The TPU-specific test layer SURVEY.md §4 calls for: device-vs-host kernel
+The device test layer SURVEY.md §4 calls for: device-vs-host kernel
 equivalence under sharding, frame/tile mesh scale-out, and the collective
 aggregation used for global rate allocation.
 """
@@ -13,10 +13,10 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from go_dicom_codec_tpu.ops.dwt53 import fwd53_multilevel, inv53_multilevel
-from go_dicom_codec_tpu.parallel import (FRAME_AXIS, TILE_AXIS, make_mesh,
+from go_dicom_codec_jax.ops.dwt53 import fwd53_multilevel, inv53_multilevel
+from go_dicom_codec_jax.parallel import (FRAME_AXIS, TILE_AXIS, make_mesh,
                                          frame_sharding, pad_batch_to_devices)
-from go_dicom_codec_tpu.pipeline import j2k_lossless_encode_transform
+from go_dicom_codec_jax.pipeline import j2k_lossless_encode_transform
 
 
 def test_eight_virtual_devices():
@@ -97,9 +97,9 @@ def test_encode_frames_sharded_byte_identical(rng):
     """The mesh-sharded multi-frame encode produces byte-identical
     codestreams to the scalar single-frame encoder, across all 8
     virtual devices."""
-    from go_dicom_codec_tpu.parallel.mesh import (encode_frames_sharded,
+    from go_dicom_codec_jax.parallel.mesh import (encode_frames_sharded,
                                                   make_mesh)
-    from go_dicom_codec_tpu.pipeline import encode_frames_pipelined
+    from go_dicom_codec_jax.pipeline import encode_frames_pipelined
 
     frames = (np.cumsum(rng.integers(-9, 10, (5, 64, 64)), axis=2)
               % 4096).astype(np.int32)
@@ -132,13 +132,13 @@ def test_encode_frames_sharded_full_surface(name, kw, shape, bits, rng):
     each byte-identical to the scalar encoder on the same transform
     lane (jit; lossy 9/7 compares native-disabled because the native
     f32 host path is a different lossy rounding profile)."""
-    import go_dicom_codec_tpu.native as natmod
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams,
+    import go_dicom_codec_jax.native as natmod
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams,
                                                     J2KEncoder)
-    from go_dicom_codec_tpu.parallel.mesh import (encode_frames_sharded,
+    from go_dicom_codec_jax.parallel.mesh import (encode_frames_sharded,
                                                   make_mesh)
 
-    from go_dicom_codec_tpu.codecs.jpeg2000 import decode_to_pixels
+    from go_dicom_codec_jax.codecs.jpeg2000 import decode_to_pixels
 
     frames = rng.integers(0, 1 << bits, shape).astype(np.int32)
     mesh = make_mesh()
@@ -161,18 +161,18 @@ def test_encode_frames_sharded_full_surface(name, kw, shape, bits, rng):
         # tie), so (a) byte-identity is asserted for the host side —
         # entropy/PCRD/headers given the SAME coefficients — and
         # (b) the end-to-end streams decode within a tie tolerance.
-        from go_dicom_codec_tpu.codecs.j2k_geometry import (
+        from go_dicom_codec_jax.codecs.j2k_geometry import (
             packed_band_layout)
-        from go_dicom_codec_tpu.codecs import j2k_quant as jq
-        from go_dicom_codec_tpu.codecs.jpeg2000 import _band_index
-        from go_dicom_codec_tpu.parallel.mesh import (pad_batch_to_devices,
+        from go_dicom_codec_jax.codecs import j2k_quant as jq
+        from go_dicom_codec_jax.codecs.jpeg2000 import _band_index
+        from go_dicom_codec_jax.parallel.mesh import (pad_batch_to_devices,
                                                       sharded_tile_coeffs)
         padded, _ = pad_batch_to_devices(
             frames if frames.ndim == 4 else frames[..., None], 8)
         # same tiles the sharded encode used
         nlv = 3
         use_mct = ncomp == 3
-        from go_dicom_codec_tpu.codestream import j2k as j2kcs
+        from go_dicom_codec_jax.codestream import j2k as j2kcs
         siz = j2kcs.SizInfo(xsiz=ww, ysiz=hh, xtsiz=kw.get(
             "tile_width", 0) or ww, ytsiz=kw.get("tile_height", 0) or hh,
             components=[(bits, False, 1, 1)] * ncomp)
@@ -220,10 +220,10 @@ def test_encode_frames_sharded_full_surface(name, kw, shape, bits, rng):
 def test_encode_frames_sharded_roi(style, rng):
     """ROI shards too: the mask pre-shift applies on the host inside
     encode(precomputed_tiles=...) — byte-identical to scalar."""
-    from go_dicom_codec_tpu.codecs.j2k_roi import ROIRegion
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams,
+    from go_dicom_codec_jax.codecs.j2k_roi import ROIRegion
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams,
                                                     J2KEncoder)
-    from go_dicom_codec_tpu.parallel.mesh import (encode_frames_sharded,
+    from go_dicom_codec_jax.parallel.mesh import (encode_frames_sharded,
                                                   make_mesh)
 
     frames = (np.cumsum(rng.integers(-9, 10, (3, 64, 64)), axis=2)
@@ -242,11 +242,11 @@ def test_decode_frames_sharded_roi_both_styles(rng):
     """ROI streams shard on decode too: MaxShift unshifts by
     magnitude, General-Scaling by the JP2ROI COM geometry masks, both
     on the packed host coefficients — bit-identical to scalar."""
-    from go_dicom_codec_tpu.codecs.j2k_roi import ROIRegion
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+    from go_dicom_codec_jax.codecs.j2k_roi import ROIRegion
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                     J2KEncodeParams,
                                                     J2KEncoder)
-    from go_dicom_codec_tpu.parallel.mesh import (decode_frames_sharded,
+    from go_dicom_codec_jax.parallel.mesh import (decode_frames_sharded,
                                                   make_mesh)
 
     frames = (np.cumsum(rng.integers(-9, 10, (3, 64, 64)), axis=2)
@@ -276,10 +276,10 @@ def test_decode_frames_sharded_bit_identical(name, shape, bits, kw, rng):
     """Round-4: the mesh-sharded DECODE (host entropy per frame + one
     frame-axis-sharded inverse-transform launch) is bit-identical to
     the scalar decoder across the 8 virtual devices."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                     J2KEncodeParams,
                                                     J2KEncoder)
-    from go_dicom_codec_tpu.parallel.mesh import (decode_frames_sharded,
+    from go_dicom_codec_jax.parallel.mesh import (decode_frames_sharded,
                                                   make_mesh)
 
     frames = rng.integers(0, 1 << bits, shape).astype(np.int32)
@@ -305,10 +305,10 @@ def test_decode_frames_sharded_lossy_within_tie_tolerance(rng):
     inverse. Pixels match the scalar decoder within ±1 (one-ulp float
     program differences can flip a rounding tie — same policy as the
     sharded lossy encode)."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                     J2KEncodeParams,
                                                     J2KEncoder)
-    from go_dicom_codec_tpu.parallel.mesh import decode_frames_sharded
+    from go_dicom_codec_jax.parallel.mesh import decode_frames_sharded
 
     frames = (np.cumsum(rng.integers(-9, 10, (3, 64, 64)), axis=2)
               % 256).astype(np.int32)
@@ -333,10 +333,10 @@ def test_encode_frames_sharded_custom_mct(case, rng):
     stage mirrors _tile_coeffs_device's binding order and the encode's
     use_mct override — bindings/matrix replace RCT/ICT), byte-identical
     to the scalar encoder on this backend."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams,
                                                     J2KEncoder)
-    from go_dicom_codec_tpu.codecs.mct_builder import MCTBinding
-    from go_dicom_codec_tpu.parallel.mesh import (encode_frames_sharded,
+    from go_dicom_codec_jax.codecs.mct_builder import MCTBinding
+    from go_dicom_codec_jax.parallel.mesh import (encode_frames_sharded,
                                                   make_mesh)
 
     m = [[0.5, 0.25, 0.25], [0.25, 0.5, 0.25], [0.25, 0.25, 0.5]]
@@ -368,10 +368,10 @@ def test_decode_frames_sharded_multitile(case, rng):
     """Multi-tile streams shard on decode too: one frame-batched
     inverse launch per tile (the decode mirror of the per-tile encode
     batches)."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                     J2KEncodeParams,
                                                     J2KEncoder)
-    from go_dicom_codec_tpu.parallel.mesh import (decode_frames_sharded,
+    from go_dicom_codec_jax.parallel.mesh import (decode_frames_sharded,
                                                   make_mesh)
 
     mesh = make_mesh()
@@ -403,11 +403,11 @@ def test_decode_frames_sharded_custom_mct(case, rng):
     """Part-2 custom MCT streams shard on decode: the batched stage
     applies the marker-carried inverse matrices (reverse MCO order)
     like the scalar decoder, within one rounding tie."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                     J2KEncodeParams,
                                                     J2KEncoder)
-    from go_dicom_codec_tpu.codecs.mct_builder import MCTBinding
-    from go_dicom_codec_tpu.parallel.mesh import (decode_frames_sharded,
+    from go_dicom_codec_jax.codecs.mct_builder import MCTBinding
+    from go_dicom_codec_jax.parallel.mesh import (decode_frames_sharded,
                                                   make_mesh)
 
     m = [[0.5, 0.25, 0.25], [0.25, 0.5, 0.25], [0.25, 0.25, 0.5]]
@@ -439,7 +439,7 @@ def _remux_two_component(frame_a, frame_b, sub, levels_b=None):
     drive the sharded decoder's heterogeneous path)."""
     from test_j2k_markers import _encode_gray, _split_packets
 
-    from go_dicom_codec_tpu.codestream import j2k
+    from go_dicom_codec_jax.codestream import j2k
 
     cs_a = j2k.parse_codestream(_encode_gray(frame_a, levels=2))
     cs_b = j2k.parse_codestream(_encode_gray(
@@ -482,8 +482,8 @@ def test_decode_frames_sharded_heterogeneous(case, rng):
     launch per tile-component on its own grid, bit-identical to the
     scalar decoder (which reconstructs such components independently
     and replication-upsamples)."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import J2KDecoder
-    from go_dicom_codec_tpu.parallel.mesh import (decode_frames_sharded,
+    from go_dicom_codec_jax.codecs.jpeg2000 import J2KDecoder
+    from go_dicom_codec_jax.parallel.mesh import (decode_frames_sharded,
                                                   make_mesh)
 
     streams = []
@@ -512,11 +512,11 @@ def test_decode_frames_sharded_per_tile_cod_override(rng):
     import dataclasses
     import struct
 
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                     J2KEncodeParams,
                                                     J2KEncoder)
-    from go_dicom_codec_tpu.codestream import j2k
-    from go_dicom_codec_tpu.parallel.mesh import (decode_frames_sharded,
+    from go_dicom_codec_jax.codestream import j2k
+    from go_dicom_codec_jax.parallel.mesh import (decode_frames_sharded,
                                                   make_mesh)
 
     frames = (np.cumsum(rng.integers(-9, 10, (3, 64, 48)), axis=2)
@@ -553,11 +553,11 @@ def test_decode_frames_sharded_per_tile_cod_rgb_mct(rng):
     import dataclasses
     import struct
 
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                     J2KEncodeParams,
                                                     J2KEncoder)
-    from go_dicom_codec_tpu.codestream import j2k
-    from go_dicom_codec_tpu.parallel.mesh import (decode_frames_sharded,
+    from go_dicom_codec_jax.codestream import j2k
+    from go_dicom_codec_jax.parallel.mesh import (decode_frames_sharded,
                                                   make_mesh)
 
     frames = (np.cumsum(rng.integers(-5, 6, (3, 64, 48, 3)), axis=2)
@@ -592,11 +592,11 @@ def test_decode_frames_sharded_qcc_override_rgb_ict(rng):
     import dataclasses
     import struct
 
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                     J2KEncodeParams,
                                                     J2KEncoder)
-    from go_dicom_codec_tpu.codestream import j2k
-    from go_dicom_codec_tpu.parallel.mesh import (decode_frames_sharded,
+    from go_dicom_codec_jax.codestream import j2k
+    from go_dicom_codec_jax.parallel.mesh import (decode_frames_sharded,
                                                   make_mesh)
 
     frames = (np.cumsum(rng.integers(-5, 6, (3, 64, 64, 3)), axis=2)
@@ -627,10 +627,10 @@ def test_decode_frames_sharded_mixed_batch_raises(rng):
     """A batch mixing a uniform stream with a heterogeneous one is not
     equal-geometry: the fallback dispatch must raise, not silently
     decode through the wrong path."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams,
                                                     J2KEncoder)
-    from go_dicom_codec_tpu.errors import UnsupportedFormatError
-    from go_dicom_codec_tpu.parallel.mesh import (decode_frames_sharded,
+    from go_dicom_codec_jax.errors import UnsupportedFormatError
+    from go_dicom_codec_jax.parallel.mesh import (decode_frames_sharded,
                                                   make_mesh)
 
     a = rng.integers(0, 1 << 16, (64, 64), dtype=np.uint16)

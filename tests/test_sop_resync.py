@@ -16,10 +16,10 @@ import struct
 
 import numpy as np
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                 J2KEncodeParams, J2KEncoder,
                                                 _sop_resync)
-from go_dicom_codec_tpu.codestream import j2k
+from go_dicom_codec_jax.codestream import j2k
 
 
 def _img(h=128, w=120, seed=7, bits=12):
@@ -67,7 +67,7 @@ def test_resilient_decode_recovers_later_packets():
     spans = _packet_spans(s)
     assert len(spans) == 3
     # clean packed coefficients (pre-inverse)
-    from go_dicom_codec_tpu.codecs.jpeg2000 import decode_to_packed_tiles
+    from go_dicom_codec_jax.codecs.jpeg2000 import decode_to_packed_tiles
     clean = decode_to_packed_tiles(s)[0][0][1]
 
     p0, p1 = spans[1]
@@ -82,7 +82,7 @@ def test_resilient_decode_recovers_later_packets():
     assert arr.shape == (128, 120, 1)
 
     # coefficient-level check through the internal hook
-    from go_dicom_codec_tpu.codestream.j2k import parse_codestream
+    from go_dicom_codec_jax.codestream.j2k import parse_codestream
     cs = parse_codestream(corrupted)
     tile = cs.tiles[0]
     ncomp = 1
@@ -154,7 +154,7 @@ def test_resync_handles_multiple_hits():
     assert arr.shape == (128, 120, 1)
     # the final (r=3) packet must have been recovered: its detail ring
     # is non-trivial in the packed domain for noise content
-    from go_dicom_codec_tpu.codestream.j2k import parse_codestream
+    from go_dicom_codec_jax.codestream.j2k import parse_codestream
     cs = parse_codestream(bytes(bad))
     tile = cs.tiles[0]
     dec = J2KDecoder(resilient=True)
@@ -162,7 +162,7 @@ def test_resync_handles_multiple_hits():
         tile.data, cs.siz.tile_rect(0, 0), [cs.cod_for(0, tile)],
         [cs.qcd_for(0, tile)], 1, 12, False, cs.rgn_shifts, None,
         plt_lengths=tile.plt, _return_packed=True)
-    from go_dicom_codec_tpu.codecs.jpeg2000 import decode_to_packed_tiles
+    from go_dicom_codec_jax.codecs.jpeg2000 import decode_to_packed_tiles
     ref = decode_to_packed_tiles(s)[0][0][1]
     got = packed[:, :, 0] if packed.ndim == 3 else packed
     ref = ref[:, :, 0] if ref.ndim == 3 else ref
@@ -175,7 +175,7 @@ def test_resync_handles_multiple_hits():
 def test_sop_resync_strict_mode_still_raises():
     """Strict decode is untouched by the resync path."""
     import pytest
-    from go_dicom_codec_tpu.errors import CorruptStreamError
+    from go_dicom_codec_jax.errors import CorruptStreamError
     img = _img()
     s = _enc(img, num_levels=2)
     spans = _packet_spans(s)

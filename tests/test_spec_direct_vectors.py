@@ -21,9 +21,9 @@ import struct
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs import jpeg_extended, jpeg_lossless, jpegls, rle
-from go_dicom_codec_tpu.entropy.rlepack import packbits_decode
-from go_dicom_codec_tpu.frames import FrameInfo
+from go_dicom_codec_jax.codecs import jpeg_extended, jpeg_lossless, jpegls, rle
+from go_dicom_codec_jax.entropy.rlepack import packbits_decode
+from go_dicom_codec_jax.frames import FrameInfo
 
 # =========================================================================
 # PS3.5 Annex G — RLE
@@ -687,7 +687,7 @@ def test_ext12_spec_direct_streams_decode(dri, rng):
         blocks.append(row)
     stream = _ext12_encode_spec(blocks, bw_, bh_, w, h, qtab, dri=dri)
 
-    from go_dicom_codec_tpu.codecs import jpeg_extended
+    from go_dicom_codec_jax.codecs import jpeg_extended
     pixels, gw, gh, nc, depth = jpeg_extended.decode(stream)
     assert (gw, gh, nc, depth) == (w, h, 1, 12)
     got = np.frombuffer(pixels, dtype="<u2").reshape(h, w).astype(np.int64)
@@ -713,7 +713,7 @@ def test_ext12_spec_direct_dc_only_flat():
     qtab[0] = 16
     blocks = [[{0: 5}, {0: -3}], [{0: 0}, {0: 100}]]
     stream = _ext12_encode_spec(blocks, 2, 2, 16, 16, qtab)
-    from go_dicom_codec_tpu.codecs import jpeg_extended
+    from go_dicom_codec_jax.codecs import jpeg_extended
     pixels, gw, gh, nc, depth = jpeg_extended.decode(stream)
     got = np.frombuffer(pixels, dtype="<u2").reshape(16, 16).astype(int)
     for (by, bx), dc in [((0, 0), 5), ((0, 1), -3), ((1, 0), 0),

@@ -11,8 +11,8 @@ diagonal (full parity is tests/test_native.py's job).
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu import native as nat
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
+from go_dicom_codec_jax import native as nat
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
                                                 decode_to_pixels)
 
 S_LAZY, S_RESET, S_TERMALL, S_VSC, S_PTERM, S_SEGSYM = (
@@ -79,7 +79,7 @@ def test_t1_9x1_vsc_termall_bitplane0():
 
 def test_t1_native_python_parity_diagonal(rng):
     """Spot-check native == Python byte-for-byte on the sweep diagonal."""
-    from go_dicom_codec_tpu.entropy.ebcot import T1Encoder
+    from go_dicom_codec_jax.entropy.ebcot import T1Encoder
 
     for (w, h, style) in [(1, 1, 0), (3, 3, S_LAZY), (5, 5, S_TERMALL),
                           (9, 9, S_VSC), (17, 17, 0x3F),

@@ -11,7 +11,7 @@ and distortion machinery the codec's PCRD depends on.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.entropy.ebcot import (NMSEDEC_REF, NMSEDEC_REF0,
+from go_dicom_codec_jax.entropy.ebcot import (NMSEDEC_REF, NMSEDEC_REF0,
                                               NMSEDEC_SIG, NMSEDEC_SIG0,
                                               STYLE_LAZY, STYLE_TERMALL,
                                               T1Decoder, T1Encoder,

@@ -10,10 +10,10 @@ on paths the corruption fuzzer doesn't deterministically reach.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.entropy.ebcot import STYLE_LAZY, STYLE_TERMALL
-from go_dicom_codec_tpu.errors import CorruptStreamError
-from go_dicom_codec_tpu.t2.bitio import BioReader, BioWriter
-from go_dicom_codec_tpu.t2.packets import (BlockState, PrecinctState,
+from go_dicom_codec_jax.entropy.ebcot import STYLE_LAZY, STYLE_TERMALL
+from go_dicom_codec_jax.errors import CorruptStreamError
+from go_dicom_codec_jax.t2.bitio import BioReader, BioWriter
+from go_dicom_codec_jax.t2.packets import (BlockState, PrecinctState,
                                            _decode_num_passes,
                                            _encode_num_passes,
                                            _floor_log2, _segments,
@@ -436,7 +436,7 @@ def _pinfo(comp, res):
 
 
 def _order(progression, nl=2, nr=3, nc=2):
-    from go_dicom_codec_tpu.t2.packets import progression_order
+    from go_dicom_codec_jax.t2.packets import progression_order
     return list(progression_order(progression, nl, nr, nc, _pinfo))
 
 

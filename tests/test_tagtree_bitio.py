@@ -9,8 +9,8 @@ JPEG 2000 bit-stuffing rule (a 0 bit is forced after any 0xFF byte).
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.t2.bitio import BioReader, BioWriter
-from go_dicom_codec_tpu.t2.tagtree import TagTree
+from go_dicom_codec_jax.t2.bitio import BioReader, BioWriter
+from go_dicom_codec_jax.t2.tagtree import TagTree
 
 
 def _roundtrip_tree(values: np.ndarray, thresholds) -> None:

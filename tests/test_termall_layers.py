@@ -10,10 +10,10 @@ because this interaction once corrupted streams).
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams,
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams,
                                                 J2KEncoder,
                                                 decode_to_pixels)
-from go_dicom_codec_tpu.entropy.ebcot import (STYLE_LAZY, STYLE_RESET,
+from go_dicom_codec_jax.entropy.ebcot import (STYLE_LAZY, STYLE_RESET,
                                               STYLE_SEGSYM, STYLE_TERMALL,
                                               STYLE_VSC)
 
@@ -97,7 +97,7 @@ def test_termall_gradient_image():
 def test_termall_pass_lengths_parse(rng):
     """TERMALL streams decode under the strict parser (exact per-pass
     lengths in packet headers)."""
-    from go_dicom_codec_tpu.codecs.jpeg2000 import J2KDecoder
+    from go_dicom_codec_jax.codecs.jpeg2000 import J2KDecoder
 
     img = rng.integers(0, 4096, (32, 32)).astype(np.int64)
     stream = J2KEncoder(J2KEncodeParams(

@@ -9,7 +9,7 @@ combined with decomposition levels.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
                                                 J2KEncoder)
 
 

@@ -11,7 +11,7 @@ import json
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.tools import transcode as tc
+from go_dicom_codec_jax.tools import transcode as tc
 
 
 def _img(bits=8, h=40, w=56, comps=1, seed=5):
@@ -31,9 +31,9 @@ def _npy_bytes(arr):
 def test_sniff_all_families():
     img = _img()
     px = img.tobytes()
-    from go_dicom_codec_tpu.codecs import (jpeg_baseline, jpeg_extended,
+    from go_dicom_codec_jax.codecs import (jpeg_baseline, jpeg_extended,
                                            jpeg_lossless, jpegls, rle)
-    from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams,
+    from go_dicom_codec_jax.codecs.jpeg2000 import (J2KEncodeParams,
                                                     J2KEncoder)
     h, w = img.shape
     assert tc.sniff(jpeg_baseline.encode(px, w, h, 1, 90)) == "jpeg-dct"
@@ -45,7 +45,7 @@ def test_sniff_all_families():
     cs = J2KEncoder(J2KEncodeParams()).encode(img.astype(np.int32), w, h,
                                               1, 8)
     assert tc.sniff(cs) == "j2k"
-    from go_dicom_codec_tpu.codestream import j2k
+    from go_dicom_codec_jax.codestream import j2k
     assert tc.sniff(j2k.wrap_jp2(cs)) == "j2k"
     assert tc.sniff(rle.encode_frame(px, tc._frame_info(w, h, 1, 8))) \
         == "rle"
@@ -75,7 +75,7 @@ def test_lossless_chain_bit_exact(tmp_path, chain):
 
 def test_rle_input_needs_geometry(tmp_path):
     img = _img(8)
-    from go_dicom_codec_tpu.codecs import rle
+    from go_dicom_codec_jax.codecs import rle
     h, w = img.shape
     enc = rle.encode_frame(img.tobytes(), tc._frame_info(w, h, 1, 8))
     src = tmp_path / "in.rle"

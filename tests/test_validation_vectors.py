@@ -18,7 +18,7 @@ import pytest
 def _fwd53(vals, even=True):
     import jax.numpy as jnp
 
-    from go_dicom_codec_tpu.ops.dwt53 import fwd53_1d
+    from go_dicom_codec_jax.ops.dwt53 import fwd53_1d
 
     return np.asarray(fwd53_1d(jnp.asarray(np.asarray(vals, np.int32)),
                                even)).tolist()
@@ -45,7 +45,7 @@ def test_dwt53_hand_vectors_odd_parity():
 def test_dwt53_perfect_reconstruction_vectors():
     import jax.numpy as jnp
 
-    from go_dicom_codec_tpu.ops.dwt53 import fwd53_1d, inv53_1d
+    from go_dicom_codec_jax.ops.dwt53 import fwd53_1d, inv53_1d
 
     for vals, even in [([0, 10, 20, 30, 40, 50, 60, 70], True),
                        ([-5, 3, 8, -2, 7], True),
@@ -60,7 +60,7 @@ def test_dwt97_normalization_bounds():
     (dwt_precision_test.go's float-precision role)."""
     import jax.numpy as jnp
 
-    from go_dicom_codec_tpu.ops.dwt97 import fwd97_1d
+    from go_dicom_codec_jax.ops.dwt97 import fwd97_1d
 
     x = jnp.full((64,), 100.0, dtype=jnp.float32)
     out = np.asarray(fwd97_1d(x, True))
@@ -75,7 +75,7 @@ def test_dwt97_normalization_bounds():
 
 def test_mq_state_table_invariants():
     """ISO Table C.2 invariants (mqc_states_test.go role)."""
-    from go_dicom_codec_tpu.entropy.mq import NLPS, NMPS, QE, SWITCH
+    from go_dicom_codec_jax.entropy.mq import NLPS, NMPS, QE, SWITCH
 
     assert len(QE) == len(NMPS) == len(NLPS) == len(SWITCH) == 47
     assert QE[0] == 0x5601 and QE[46] == 0x5601
@@ -93,7 +93,7 @@ def test_mq_state_table_invariants():
 def test_mq_known_first_bytes():
     """First coded bytes of a fixed decision sequence, cross-checked by
     decoding — and stable across the native/Python implementations."""
-    from go_dicom_codec_tpu.entropy.mq import MQDecoder, MQEncoder
+    from go_dicom_codec_jax.entropy.mq import MQDecoder, MQEncoder
 
     enc = MQEncoder(num_contexts=2)
     bits = [0, 1, 0, 0, 1, 1, 1, 0, 0, 0, 1, 0, 1, 1, 0, 0]
@@ -112,7 +112,7 @@ def test_zc_context_assignments_table_d1():
     """Zero-coding contexts for canonical neighborhoods (T.800 Table
     D.1; t1_context_test.go role). Bit layout of the LUT index:
     nw|n<<1|ne<<2|w<<3|e<<5|sw<<6|s<<7|se<<8."""
-    from go_dicom_codec_tpu.entropy.ebcot import ZC_LUT
+    from go_dicom_codec_jax.entropy.ebcot import ZC_LUT
 
     LL = ZC_LUT[0]
     assert LL[0] == 0                      # no significant neighbors
@@ -134,7 +134,7 @@ def test_sc_context_assignments_table_d3():
     """Sign-coding contexts/XOR bits for canonical (H, V) contributions
     (T.800 Table D.3). Index bits: Wsig<<3, Wneg<<0, Nsig<<1, Nneg<<4,
     Esig<<5, Eneg<<2, Ssig<<7, Sneg<<6."""
-    from go_dicom_codec_tpu.entropy.ebcot import SC_LUT, SPB_LUT
+    from go_dicom_codec_jax.entropy.ebcot import SC_LUT, SPB_LUT
 
     def idx(w=None, n=None, e=None, s=None):
         i = 0
@@ -163,10 +163,10 @@ def test_cross_module_pipeline_fixed_pattern():
     Python reference and the native mirror."""
     import jax.numpy as jnp
 
-    from go_dicom_codec_tpu.entropy.ebcot import T1Decoder, T1Encoder
-    from go_dicom_codec_tpu.native import (t1_decode_native,
+    from go_dicom_codec_jax.entropy.ebcot import T1Decoder, T1Encoder
+    from go_dicom_codec_jax.native import (t1_decode_native,
                                            t1_encode_native)
-    from go_dicom_codec_tpu.ops.dwt53 import fwd53_multilevel
+    from go_dicom_codec_jax.ops.dwt53 import fwd53_multilevel
 
     img = np.fromfunction(lambda y, x: (x + y) * 10, (8, 8),
                           dtype=np.int32).astype(np.int32)

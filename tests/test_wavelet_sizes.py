@@ -12,7 +12,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from go_dicom_codec_tpu.ops.dwt53 import (fwd53_multilevel,
+from go_dicom_codec_jax.ops.dwt53 import (fwd53_multilevel,
                                           inv53_multilevel, ll_dimensions)
 
 
@@ -83,7 +83,7 @@ def test_wavelet_batch_matches_per_frame(rng):
 
 
 def test_wavelet_native_mirror_large(rng):
-    from go_dicom_codec_tpu.native import dwt53_fwd_native, get_lib
+    from go_dicom_codec_jax.native import dwt53_fwd_native, get_lib
 
     if get_lib() is None:
         pytest.skip("native unavailable")

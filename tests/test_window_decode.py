@@ -10,10 +10,10 @@ window (Annex B ceil-div mapping + lifting-support margin) skip T1.
 import numpy as np
 import pytest
 
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder,
+from go_dicom_codec_jax.codecs.jpeg2000 import (J2KDecoder,
                                                 J2KEncodeParams, J2KEncoder,
                                                 decode_to_pixels)
-from go_dicom_codec_tpu.errors import UnsupportedFormatError
+from go_dicom_codec_jax.errors import UnsupportedFormatError
 
 
 def _img(h=200, w=190, seed=0):
@@ -50,7 +50,7 @@ def test_window_equals_full_decode_crop(kw):
 
 
 def test_window_rgb_and_roi():
-    from go_dicom_codec_tpu.codecs.j2k_roi import ROIRegion
+    from go_dicom_codec_jax.codecs.j2k_roi import ROIRegion
     rng = np.random.default_rng(4)
     rgb = rng.integers(0, 256, (3, 120, 110)).astype(np.int32)
     s = J2KEncoder(J2KEncodeParams()).encode(rgb, 110, 120, 3, 8)
@@ -109,7 +109,7 @@ def test_window_skips_unneeded_tiles_entirely():
     never touches it (whole-tile entropy skip)."""
     import struct
 
-    from go_dicom_codec_tpu.codestream import j2k
+    from go_dicom_codec_jax.codestream import j2k
     img = _img()
     s = J2KEncoder(J2KEncodeParams(tile_width=64, tile_height=48)
                    ).encode(img, 190, 200, 1, 12)
